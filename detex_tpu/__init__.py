@@ -1,12 +1,12 @@
 """
-detex_tpu: a TPU-native (JAX/XLA/Pallas) waveform-similarity clustering and
-subspace detection framework.
+detex_tpu: a JAX/XLA waveform-similarity clustering and subspace detection
+framework.
 
-Re-implements the capabilities of Detex (github.com/d-chambers/Detex) with a
-TPU-first architecture: all compute-bound cores (pairwise normalized
-cross-correlation, subspace detection statistics, SVD, triggering) run as
-batched JAX/XLA/Pallas kernels on device, while I/O, catalogs and SQLite
-persistence stay on host.
+Re-implements the capabilities of Detex (github.com/d-chambers/Detex) with
+an accelerator-first architecture: all compute-bound cores (pairwise
+normalized cross-correlation, subspace detection statistics, SVD,
+triggering) run as batched JAX/XLA programs on device, while I/O, catalogs
+and SQLite persistence stay on host.
 
 Public API mirrors the reference (`detex/__init__.py:42-43,57-153`):
     createCluster, createSubSpace, loadClusters, loadSubSpace,
@@ -135,11 +135,9 @@ def closeLogger():
 # Submodule imports & API re-exports (after logging is defined: submodules
 # call detex_tpu.log at import-error time)
 # ---------------------------------------------------------------------------
-# persistent XLA compile cache: jax 0.9 ignores the env vars, so the
-# config must be set programmatically (see detex_tpu/compile_cache.py) —
-# on this class of backend a fresh program shape costs minutes of remote
-# compile, and caching it across processes is a first-order performance
-# feature, not a convenience.
+# persistent XLA compile cache (detex_tpu/compile_cache.py): every bank
+# shape is a fresh XLA compile, so caching programs across processes is a
+# first-order performance feature, not a convenience.
 from detex_tpu import compile_cache  # noqa: E402
 compile_cache.enable()
 

@@ -4,7 +4,7 @@ Factories: createCluster (waveform-similarity clustering) and createSubSpace
 device kernels.
 
 The O(N^2) pairwise correlation loop (reference construct.py:369-394) is a
-single batched TPU call (detex_tpu.ops.xcorr.xcorr_all_pairs); hierarchical
+single batched device call (detex_tpu.ops.xcorr.xcorr_all_pairs); hierarchical
 linkage stays on host (scipy, tiny N); alignment uses the invariant tree
 walk in detex_tpu.align.
 """

@@ -3,9 +3,9 @@ On-device chunk preprocessing fused into the DS scan.
 
 The reference preprocesses every continuous chunk on host (obspy bandpass +
 detrend + multiplex, construct.py:990-1030) before the detection statistic.
-On this class of hardware the host prep (~35 ms/chunk single-core) costs
-~200x the device scan (~0.2 ms/chunk), so detex_tpu can instead do it
-on device, inside the FFTs the scan already performs:
+Host prep can cost far more than the device scan of the same chunk, so
+detex_tpu can instead do it on device, inside the FFTs the scan already
+performs:
 
   - linear detrend: closed-form masked least squares per channel
   - zero-phase Butterworth bandpass: multiply the channel spectra by
@@ -29,7 +29,6 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 from scipy import signal as _sig
-
 
 
 def butter_response(filt, sr, nfft, zerophase=True):
@@ -111,15 +110,12 @@ def ds_bank_demux_raw(xc, Lv, H, Ufd2, sum_u, d_mask, n_c, nc, nfft2,
 
     # correlation spectra from the UNstandardized filtered spectra, fixed
     # up algebraically: cc_std = (cc_raw - mu * sum_u) / sd
-    spec = jnp.einsum("sdcr,cr->sdr", Ufd2, Ff)       # [S, Dmax, R2]
+    spec = jnp.einsum("sdcr,cr->sdr", Ufd2, Ff,
+                      precision=jax.lax.Precision.HIGHEST)  # [S, Dmax, R2]
     cc = jnp.fft.irfft(spec, nfft2, axis=-1)[:, :, n_c - 1:L_c]
     su = jnp.where(d_mask, sum_u, 0.0)
     cc = (cc - mu * su[:, :, None]) / sd
-    from detex_tpu.ops.ds import _use_pallas
     powsafe = jnp.where(power == 0, jnp.inf, power)
-    if _use_pallas():
-        from detex_tpu.ops.pallas_kernels import ds_finalize
-        return ds_finalize(cc, a, powsafe, su)
     y = cc - su[:, :, None] * a[None, None, :]
     num = jnp.sum(y * y, axis=1)
     return num / powsafe[None, :]
@@ -129,10 +125,10 @@ def ds_bank_demux_raw(xc, Lv, H, Ufd2, sum_u, d_mask, n_c, nc, nfft2,
 def prep_multiplex_batch(Xc, LV, H, nfftp, dec, nc):
     """
     Batched device preprocessing producing MULTIPLEXED chunks for the
-    fold-batch / fused spec->DS scan path: the devicePrep engine's
-    monolithic per-chunk kernel (ds_bank_demux_raw) needs full-length
-    spectra and therefore could not ride the overlap-save fold scan;
-    splitting prep from scan gives devicePrep runs the same fold wins.
+    overlap-save scan routes: the devicePrep engine's monolithic
+    per-chunk kernel (ds_bank_demux_raw) needs full-length spectra and
+    therefore cannot serve overlap-save banks; splitting prep from scan
+    lets devicePrep runs use them.
 
     Xc : [B, nc, L_raw] raw channels (zero-padded rows)
     LV : [B] int32 true per-channel RAW sample counts

@@ -1,7 +1,8 @@
 """
 SVD and fractional-energy-capture helpers (reference subspace.py:786-1013).
 
-dtype='single' runs the SVD on device in float32 (the TPU path);
+dtype='single' runs the SVD on device in float32 (projections at
+HIGHEST matmul precision, so a GPU keeps full float32 instead of TF32);
 dtype='double' runs it on host in float64, matching the reference's
 scipy.linalg.svd numerics (subspace.py:890) exactly — basis vectors,
 thresholds and downstream DS values then agree with a float64 oracle to
@@ -9,6 +10,7 @@ thresholds and downstream DS values then agree with a float64 oracle to
 """
 from __future__ import annotations
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 
@@ -71,7 +73,7 @@ def frac_energy(U, aligned, dtype="double"):
                                np.cumsum(rep, axis=1)], axis=1)
     U = jnp.asarray(U, jnp.float32)
     A = jnp.asarray(aligned, jnp.float32)
-    proj = (U.T @ A.T).T                                  # [N, k]
+    proj = jnp.matmul(A, U, precision=jax.lax.Precision.HIGHEST)  # [N, k]
     norm = jnp.linalg.norm(A, axis=1, keepdims=True)
     rep = (proj / norm) ** 2
     cum = jnp.concatenate([jnp.zeros((A.shape[0], 1)),

@@ -97,9 +97,7 @@ def load_detectors(path, chunk_sec=3600.0, conBuff=120.0):
             by_n.setdefault(U.shape[1], []).append((det, U))
         banks = []
         for n, items in sorted(by_n.items()):
-            # overlap-save on TPU -> the fold-batch scan path
-            bank = _ds.build_bank([u for _, u in items], nc, data_len,
-                                  prefer_os=_ds._use_pallas())
+            bank = _ds.build_bank([u for _, u in items], nc, data_len)
             bank["names"] = [d["name"] for d, _ in items]
             bank["thresholds"] = np.array([d["threshold"]
                                            for d, _ in items], np.float32)
@@ -126,8 +124,9 @@ def scan_station(dep, sta, chunks, mesh=None, bins=None, buff_sec=20.0,
     Returns list of per-bank dicts: {names, hist [S, nbins], maxds [B, S],
     trig_idx, trig_val, trig_count}.
 
-    ``hist`` backend divergence (+/-1 at bin edges between TPU and CPU):
-    canonical statement in PARITY.md ("uniform-bin DS histograms on TPU").
+    ``hist`` uses np.histogram's binning on every backend; counts can
+    still move by one bin where a float32 DS lands within one ULP of an
+    edge (PARITY.md, "DS histograms").
     """
     sd = dep[sta]
     nc, sr = sd["nc"], sd["sr"]
@@ -159,7 +158,7 @@ def scan_station(dep, sta, chunks, mesh=None, bins=None, buff_sec=20.0,
 
 
 def _bank_H(bank, nc, filt, dec, sr):
-    """Spectral response for the fused device prep, cached on the bank —
+    """Spectral response for the device prep, cached on the bank —
     the same formula the detection engine uses (detect._prepareDetectors:
     zero-phase |H|^2 over dec * nfftp bins at the RAW rate; overlap-save
     banks carry no full-length FFT size, so it is recomputed with the
@@ -191,8 +190,8 @@ def scan_station_raw(dep, sta, chans, lens=None, mesh=None, bins=None,
     """
     Scan RAW channel chunks [B, nc, L_raw] (unfiltered, undecimated, as
     read from the wire/archive): detrend + zero-phase bandpass + optional
-    decimation run FUSED ON DEVICE (the engine's devicePrep path,
-    ops/prep.py), then the fold-batch / fused spec->DS scan — no host
+    decimation run ON DEVICE (the engine's devicePrep path,
+    ops/prep.py), then the batched DS scan — no host
     preprocessing in the hot loop. The artifact's ``filt``/``decimate``
     metadata define the preprocessing, so results match scan_station on
     host-prepped chunks to the spectral-vs-SOS filter tolerance

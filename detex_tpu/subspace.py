@@ -4,7 +4,7 @@ SubSpace (subspace detectors) — reference detex/subspace.py rebuilt.
 
 SVD runs on device (detex_tpu.ops.svd); thresholds come from the empirical
 null via detex_tpu.fas (beta fit on host scipy); detection dispatches to the
-TPU engine in detex_tpu.detect.
+device engine in detex_tpu.detect.
 """
 from __future__ import annotations
 
@@ -29,14 +29,13 @@ from detex_tpu.ops import xcorr as _xcorr
 # Template-length bucketing. The detection engine and the FAS null scanner
 # pack detectors into fixed-shape device banks GROUPED BY template length
 # (detect._prepareDetectors / fas._initFAS "by_n"), and every distinct
-# length compiles a separate XLA program — minutes of remote compile each
-# on this class of backend. Pick-derived trims naturally differ by a few
-# samples per detector (per-event pick medians + channel snapping), which
-# exploded the round-4 end-to-end run into hundreds of compiles
-# (CONFIG5_r04: 0.006 st-d/s; VERDICT round-4 #1; SURVEY §7 "keep XLA
-# compile counts bounded"). Rounding every trim window UP to a multiple
-# of TRIM_QUANTUM per-channel samples (~1-3 s of extra real waveform at
-# typical 25-100 Hz rates) collapses the length ladder to O(1) rungs.
+# length compiles a separate XLA program. Pick-derived trims naturally
+# differ by a few samples per detector (per-event pick medians + channel
+# snapping), which turns a network run into hundreds of compiles
+# (SURVEY §7 "keep XLA compile counts bounded"). Rounding every trim
+# window UP to a multiple of TRIM_QUANTUM per-channel samples (~1-3 s of
+# extra real waveform at typical 25-100 Hz rates) collapses the length
+# ladder to O(1) rungs.
 # DETEX_TPU_TRIM_QUANTUM=1 disables (exact pick-span template lengths).
 # ---------------------------------------------------------------------------
 TRIM_QUANTUM = int(os.environ.get("DETEX_TPU_TRIM_QUANTUM", "64"))
@@ -976,8 +975,7 @@ class SubSpace(object):
                 # singleton with banked device calls — a per-row call
                 # re-fetched/re-filtered the chunks and compiled a
                 # fresh one-detector bank program per singleton, which
-                # dominated the round-4 end-to-end build wall
-                # (CONFIG5_r04 subspace+SVD+FAS = 1199 s; VERDICT #1)
+                # dominated the end-to-end build wall
                 todo = [a for a, ind in enumerate(sg.index)
                         if not (isinstance(sg["FAS"].iloc[a], list)
                                 and not recalc)
@@ -1004,16 +1002,8 @@ class SubSpace(object):
         Run subspace detection over continuous data; detections land in the
         SQLite database ``subspaceDB`` with the reference schema
         (reference subspace.py:1745-1902). ``batchSize`` chunks are scanned
-        per device call (histograms/maxima stay on device; on TPU the
-        fold-batch scan amortizes per-op cost over the whole batch, so
-        larger batches scan faster up to HBM limits); 1 reverts to
+        per device call (histograms/maxima stay on device); 1 reverts to
         the per-chunk path (always used for classifyEvents/utcSaves modes).
-        NOTE: batchSize > 1 is rounded UP to a multiple of the fused
-        kernel's tile quantum times the mesh size (SPEC_DS_ST *
-        n_devices; 8 on a single chip, 64 on an 8-device mesh) so mesh
-        runs keep the fused kernel — the engine logs the effective batch
-        when it differs, and padded chunk slots are fully masked (their
-        only cost is scanning a few extra masked rows per batch).
         ``devicePrep=True`` fuses detrend + zero-phase bandpass into the
         device scan (see detex_tpu.ops.prep), removing the host filter from
         the hot path; triggered chunks are re-verified through the exact

@@ -2,7 +2,7 @@
 //
 // The reference framework is pure Python (SURVEY.md section 0: no native
 // components exist upstream); detex_tpu adds a small C++ core for the
-// host-side data-prep path that feeds the TPU: second-order-section IIR
+// host-side data-prep path that feeds the device: second-order-section IIR
 // filtering (obspy-style zero-phase: forward pass then reversed pass, no
 // padding), linear detrending, channel interleaving (multiplexing), and a
 // fused prep kernel that does detrend -> bandpass -> interleave in one call

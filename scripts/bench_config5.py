@@ -1,24 +1,24 @@
 """
 BASELINE config-5 miniature: a multi-station x large-template-bank
-END-TO-END engine run (VERDICT round-2 missing #2) — 5 stations x ~100
+END-TO-END engine run — 5 stations x ~100
 templates x ~4.5 days of 50 Hz continuous data through the full production
 pipeline: createCluster -> createSubSpace -> attachPickTimes -> SVD ->
 SubSpace.detex (subspaces + the ~per-station-100-detector singles bank,
 histograms on, magnitudes on) -> detResults association.
 
 Prints one JSON line with the end-to-end detex() wall time, the
-station-days/s it implies, AND the attribution table VERDICT round-4 #1
-demands: per-program XLA compile counts/seconds (detex_tpu.compile_cache
+station-days/s it implies, AND an attribution table: per-program XLA
+compile counts/seconds (detex_tpu.compile_cache
 .track_compiles), persistent-cache hits, and the profiling.py stage walls
 — so compile vs launch vs host cost is measured, not asserted.
 
-Run on the TPU (no platform forcing):
+Run on the GPU (no platform forcing):
 
     python -u scripts/bench_config5.py [span_hours] [n_singles] [pf]
 
 CONFIG5_PF / the third argument set the detection Pf (default 1e-12, the
-reference default — construct.py:177). VERDICT round-4 #9: rerun at a
-realistic detection-dense Pf (e.g. 1e-9) and record it.
+reference default — construct.py:177); a realistic detection-dense run
+uses e.g. 1e-9.
 """
 from __future__ import annotations
 
@@ -39,7 +39,7 @@ def main():
                else os.environ.get("CONFIG5_PF", "1e-12"))
     # dtype='double' (reference default) re-verifies every triggered
     # chunk through the exact f64 host chain; 'single' is the production
-    # TPU configuration (f32 device scan + device-windowed re-verify,
+    # device configuration (f32 device scan + device-windowed re-verify,
     # bit-identical to the engine's f32 exact chain —
     # tests/test_device_triggers.py)
     dtype = os.environ.get("CONFIG5_DTYPE", "double")
@@ -84,7 +84,7 @@ def main():
     t0 = time.perf_counter()
     cfetch = getdata.DataFetcher("dir", directoryName=paths["conDir"])
     # Pf=1e-12 = the reference default (construct.py:177); CONFIG5_PF=1e-9
-    # is the detection-dense stress configuration (VERDICT round-4 #9)
+    # is the detection-dense stress configuration
     ss = detex_tpu.createSubSpace(Pf=pf, clust=clust, minEvents=2,
                                   dtype=dtype, conDatFetcher=cfetch)
     ss.attachPickTimes(pksFile=paths["phaseKey"], defaultDuration=20)

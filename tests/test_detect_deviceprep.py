@@ -54,7 +54,7 @@ def test_deviceprep_with_decimation(synth_case, tmp_path):
 
 
 def test_deviceprep_gate_at_threshold_margin(ss):
-    """Adversarial gate probe (VERDICT round-2 weak #3): detections sitting
+    """Adversarial gate probe: detections sitting
     within ~the devicePrep gate margin of threshold must survive the
     spectral-vs-SOS filter discrepancy. Thresholds are re-set to 1e-3
     BELOW each detector's observed peak DS — far inside the 0.005 gate
@@ -118,13 +118,16 @@ def test_deviceprep_matches_host_detections(ss):
 
 
 def test_deviceprep_fold_route_matches_host(ss, monkeypatch):
-    """With Pallas routing forced on, devicePrep builds OVERLAP-SAVE
-    banks and rides the fold-batch scan through the split batched-prep
-    path (scan_chunks_raw -> prep_multiplex_batch -> scan_chunks) —
-    detections must match the host-prep path like the monolithic kernel
-    does."""
-    monkeypatch.setenv("DETEX_TPU_PALLAS", "1")
+    """With every bank past the overlap-save size rule (budget 0), the
+    engine builds OVERLAP-SAVE banks and devicePrep rides the fold-batch
+    scan through the split batched-prep path (scan_chunks_raw ->
+    prep_multiplex_batch -> scan_chunks) — detections must match the
+    host-prep path like the monolithic kernel does."""
+    from detex_tpu.ops import ds as dsops
+    from detex_tpu.parallel import scan as pscan
+    monkeypatch.setattr(dsops, "OS_SPECTRA_BUDGET", 0)
     monkeypatch.setenv("DETEX_TPU_MESH", "0")   # single-device route
+    before = pscan.ROUTE_COUNTS["fold+devicePrep"]
     s, wd = ss
     db_host = str(wd / "host_fold.db")
     db_dev = str(wd / "dev_fold.db")
@@ -138,17 +141,20 @@ def test_deviceprep_fold_route_matches_host(ss, monkeypatch):
     dev = dev.sort_values("STMP").reset_index(drop=True)
     assert (abs(host.STMP - dev.STMP) < 0.2).all()
     assert (abs(host.DS - dev.DS) < 1e-3).all()
+    assert pscan.ROUTE_COUNTS["fold+devicePrep"] > before
 
 
 def test_deviceprep_fold_route_sharded(ss, monkeypatch):
-    """Mesh + devicePrep + overlap-save bank: the batched device prep now
+    """Mesh + devicePrep + overlap-save bank: the batched device prep
     runs INSIDE the shard body (scan_chunks_raw_sharded -> per-shard
-    prep_multiplex_batch -> fold / fused spec->DS scan) instead of
-    regressing to full-length-spectra banks (round-3 leftover). The
-    8-virtual-device mesh run must emit the same detections as host
-    prep."""
-    monkeypatch.setenv("DETEX_TPU_PALLAS", "1")
+    prep_multiplex_batch -> fold scan) instead of regressing to
+    full-length-spectra banks. The 8-virtual-device mesh run must emit
+    the same detections as host prep."""
+    from detex_tpu.ops import ds as dsops
+    from detex_tpu.parallel import scan as pscan
+    monkeypatch.setattr(dsops, "OS_SPECTRA_BUDGET", 0)
     monkeypatch.delenv("DETEX_TPU_MESH", raising=False)   # mesh ON
+    before = pscan.ROUTE_COUNTS["fold+sharded+devicePrep"]
     s, wd = ss
     db_host = str(wd / "host_fold_mesh.db")
     db_dev = str(wd / "dev_fold_mesh.db")
@@ -162,3 +168,4 @@ def test_deviceprep_fold_route_sharded(ss, monkeypatch):
     dev = dev.sort_values("STMP").reset_index(drop=True)
     assert (abs(host.STMP - dev.STMP) < 0.2).all()
     assert (abs(host.DS - dev.DS) < 1e-3).all()
+    assert pscan.ROUTE_COUNTS["fold+sharded+devicePrep"] > before

@@ -169,7 +169,7 @@ def test_engine_device_triggers_identical(ss_small, tmp_path, monkeypatch):
     monkeypatch.delenv("DETEX_TPU_DEVICE_TRIGGERS", raising=False)
     ss.detex(subspaceDB=db_nomesh, useSingles=True, estimateMags=True,
              batchSize=8)
-    # retention budget exceeded (VERDICT round-4 #8): the engine must NOT
+    # retention budget exceeded: the engine must NOT
     # keep the scan batch alive — the re-verify re-uploads its triggered
     # chunks — and the emitted rows stay identical
     db_nokeep = str(tmp_path / "nokeep.db")

@@ -1,4 +1,4 @@
-"""Multi-station engine runs (VERDICT round-2 next #4): the production
+"""Multi-station engine runs: the production
 engine dispatches device batches asynchronously and drains them across
 station boundaries (detect._SSDetex._inflight), so the device never idles
 during another station's host prep. The SubSpace.db it produces must be

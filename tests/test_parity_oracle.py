@@ -3,7 +3,7 @@ Detection-list parity gate: the production engine's ss_df/sg_df rows must
 match the independent float64 oracle (detex_tpu.oracle) — trigger indices
 exact, DS to 1e-6 (BASELINE north-star parity clause), magnitudes/SNR to
 1e-6 — on the synthetic Case1 analog. Also quantifies the f32-vs-f64 SVD
-basis drift behind the dtype option (VERDICT round-1 weak #1).
+basis drift behind the dtype option.
 """
 import os
 
@@ -130,7 +130,7 @@ def test_singleton_detection_list_parity(ss, tmp_path):
 @pytest.fixture(scope="module")
 def ss_single(synth_case, tmp_path_factory):
     """Same pipeline as ``ss`` but dtype='single' — the f32 production
-    path (VERDICT round-2 weak #1: 'single' previously had no list-level
+    path ('single' previously had no list-level
     parity guarantee)."""
     wd = tmp_path_factory.mktemp("parity_single")
     os.chdir(wd)

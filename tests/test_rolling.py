@@ -54,10 +54,8 @@ def test_rolling_precision_long_chunk(rng):
 
 @pytest.mark.parametrize("n,L", [(3, 257), (300, 7777), (128, 16384)])
 def test_rolling_sum_rows_matches_oracle(rng, n, L):
-    # the MXU two-level prefix-sum form (one triangular matmul + a short
-    # tile-sum cumsum) must match both the 1-D kernel and the exact f64
-    # window-sum oracle (PERF.md round 3d: a plain cumsum over
-    # million-sample rows was >half the subspace-scan launch)
+    # the batched prefix-sum form must match both the 1-D kernel and the
+    # exact f64 window-sum oracle
     x = rng.standard_normal((4, L)).astype(np.float32)
     got = np.asarray(rolling.rolling_sum_rows(jnp.asarray(x), n))
     one_d = np.stack([np.asarray(rolling.rolling_sum(r, n)) for r in x])

@@ -102,8 +102,8 @@ def test_scan_finds_planted_events(deployment):
 
 def test_scan_station_valid_lens_masks_pad(deployment):
     """A zero-padded chunk with valid_lens must produce the same DS maxima
-    and triggers as scanning the truncated chunk itself (ADVICE r1: pad
-    windows previously entered hist/maxds/triggers)."""
+    and triggers as scanning the truncated chunk itself (pad windows once
+    entered hist/maxds/triggers)."""
     dep = serving.load_detectors(deployment["path"], chunk_sec=3600,
                                  conBuff=120)
     synth = deployment["synth"]

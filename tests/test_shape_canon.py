@@ -1,8 +1,10 @@
-"""Shape canonicalization (round 5, VERDICT round-4 #1): trim-length
-quantization, bank row/basis-dim padding ladders, power-of-two batch
-padding — the machinery that bounds XLA compile counts on the end-to-end
-pipeline — plus the compile-cache config fix."""
+"""Shape canonicalization: trim-length quantization, bank row/basis-dim
+padding ladders, power-of-two batch padding — the machinery that bounds
+XLA compile counts on the end-to-end pipeline — plus the persistent
+compile-cache placement."""
 import os
+import subprocess
+import sys
 
 import numpy as np
 import pytest
@@ -68,7 +70,7 @@ def test_quantize_disabled_at_unit_quantum():
 
 
 def test_quantize_collapses_ladder():
-    # the CONFIG5 failure mode: ~100 detectors whose pick-derived lengths
+    # the network failure mode: ~100 detectors whose pick-derived lengths
     # differ by a few samples must land on ONE rung
     rng = np.random.default_rng(0)
     lens = {(_q({"Starttime": 0, "Endtime": int(3 * (1000 + k))}, 3)
@@ -84,15 +86,12 @@ def test_quantize_collapses_ladder():
 # pad_rows / pad_dims ladders
 # ---------------------------------------------------------------------------
 
-def test_pad_ladders():
+def test_pad_ladders(monkeypatch):
     assert [dsops.pad_rows(s) for s in (1, 8, 9, 17, 94, 458, 1000)] == \
         [8, 8, 16, 24, 96, 512, 1024]
     assert [dsops.pad_dims(d) for d in (1, 2, 3, 5, 8)] == [1, 2, 4, 8, 8]
-    os.environ["DETEX_TPU_PAD_BANKS"] = "0"
-    try:
-        assert dsops.pad_rows(94) == 94 and dsops.pad_dims(3) == 3
-    finally:
-        del os.environ["DETEX_TPU_PAD_BANKS"]
+    monkeypatch.setenv("DETEX_TPU_PAD_BANKS", "0")
+    assert dsops.pad_rows(94) == 94 and dsops.pad_dims(3) == 3
 
 
 # ---------------------------------------------------------------------------
@@ -138,16 +137,56 @@ def test_run_bank_batch_pads_to_pow2():
 
 
 # ---------------------------------------------------------------------------
-# compile cache config fix
+# compile cache placement
 # ---------------------------------------------------------------------------
 
 def test_compile_cache_enabled():
     from jax._src import config as _jcfg
     from detex_tpu import compile_cache
-    # detex_tpu import already called enable(); jax 0.9 ignores the env
-    # var, so a non-None config value proves the programmatic fix landed
+    # detex_tpu import already called enable(): a cache dir is configured
     path = compile_cache.enable()
     assert path and _jcfg.compilation_cache_dir.value == path
+
+
+def _cache_dir_in_fresh_process(**env):
+    """jax's configured cache dir after ``import detex_tpu`` in a fresh
+    process with ``env`` applied (None values are removed)."""
+    e = dict(os.environ)
+    for k, v in env.items():
+        if v is None:
+            e.pop(k, None)
+        else:
+            e[k] = v
+    code = ("import detex_tpu; from jax._src import config as c; "
+            "print(c.compilation_cache_dir.value)")
+    out = subprocess.run([sys.executable, "-c", code], env=e, text=True,
+                         capture_output=True, timeout=300,
+                         cwd=os.path.dirname(os.path.dirname(
+                             os.path.abspath(__file__))))
+    assert out.returncode == 0, out.stderr[-2000:]
+    return out.stdout.strip().splitlines()[-1]
+
+
+@pytest.mark.parametrize("case", ["env", "default", "disabled"])
+def test_compile_cache_placement(tmp_path, case):
+    from detex_tpu import compile_cache
+    if case == "env":
+        # the variable is honoured and nothing else is set in code
+        want = str(tmp_path / "cc")
+        got = _cache_dir_in_fresh_process(JAX_COMPILATION_CACHE_DIR=want,
+                                          DETEX_TPU_COMPILE_CACHE=None)
+    elif case == "default":
+        # without it the cache lives inside the checkout
+        want = compile_cache.DEFAULT_CACHE_DIR
+        got = _cache_dir_in_fresh_process(JAX_COMPILATION_CACHE_DIR=None,
+                                          DETEX_TPU_COMPILE_CACHE=None)
+        root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+        assert want == os.path.join(root, ".jaxcache")
+    else:
+        want = "None"
+        got = _cache_dir_in_fresh_process(JAX_COMPILATION_CACHE_DIR=None,
+                                          DETEX_TPU_COMPILE_CACHE="0")
+    assert got == want
 
 
 def test_track_compiles_counts():
